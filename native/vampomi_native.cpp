@@ -1,6 +1,6 @@
 // vampomi_tpu native IO runtime.
 //
-// TPU-native counterpart of the reference's C++ IO layer (MPI-IO slab
+// Counterpart of the reference's C++ IO layer (MPI-IO slab
 // reads/writes, utilities.cpp:241-267 and the chunked collective templates
 // utilities.hpp:70-124; positional fixed-width CSV rows utilities.cpp:366-401).
 // MPI is replaced by per-host pread/pwrite into one shared file — each host

@@ -247,3 +247,19 @@ class NumpyVampOracle:
                 if it > 1 and nmse < self.stop_criteria_thr:
                     break
         return history
+
+
+def engine_probes(seed, n_iter, m_pad, mt):
+    """The engine's seeded Rademacher trace probes (engine/linear.py CG
+    path), regenerated for the oracle.  threefry bits are the same on every
+    backend, so this matches the engine on the CPU and on a GPU alike."""
+    import jax
+    import jax.numpy as jnp
+
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(n_iter):
+        key, sub = jax.random.split(key)
+        b = jax.random.rademacher(sub, (m_pad,), dtype=jnp.float64) / np.sqrt(float(mt))
+        out.append(np.asarray(b))
+    return out

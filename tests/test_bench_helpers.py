@@ -43,9 +43,8 @@ def test_make_problem_shapes_and_scaling():
 
 
 def test_supervisor_kills_hung_child_and_retries(tmp_path):
-    """The cold-start contract's core promise (round-3 review: BENCH_r03
-    rc=124 was a child that hung mid-stage and took the whole bench with
-    it): a child wedged past its stage budget is killed, a fresh child is
+    """The cold-start contract's core promise (a child that hangs
+    mid-stage must not take the whole bench with it): a child wedged past its stage budget is killed, a fresh child is
     retried, and the bench still prints its one JSON line with rc=0."""
     import json
     import subprocess

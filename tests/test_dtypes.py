@@ -118,7 +118,8 @@ def test_int8_gram_close_to_f64(small_fixture):
     (jnp.int8, "spectral"),
 ])
 def test_engine_converges_low_precision(small_fixture, tmp_path, dtype, solver):
-    """The TPU production dtypes recover the signal like the f64 oracle does."""
+    """The accelerator's production dtypes recover the signal like the f64
+    oracle does."""
     fx = small_fixture
     dm = build_design(fx.X.T, compute_dtype=dtype)
     cfg = RunConfig(

@@ -103,51 +103,35 @@ def test_probit_quantized_design(probit_problem, tmp_path, dtype):
     assert final[5] > 0.6, f"x1 corr {final[5]}"
 
 
-def test_probit_compile_ahead_hits_same_cache_keys(tmp_path):
-    """The probit compile-ahead lowering must map to the same
-    persistent-cache key as the loop's real _probit_phase calls — exactly
-    one cache entry per kernel after a run (see the linear-engine twin
-    test for the full rationale)."""
-    import glob
-    import subprocess
-    import sys
+@pytest.mark.parametrize("on_mesh", [False, True])
+def test_probit_run_compiles_each_phase_once(tmp_path, mesh8, caplog,
+                                             on_mesh):
+    """The probit loop compiles its phase once per run, on a mesh too, with
+    N equal to the padded marker count (the loop state is committed by
+    role, sharding.commit_like, not by length)."""
+    import logging
 
-    prog = """
-import os
-import jax
-jax.config.update("jax_platforms", "cpu")
-import numpy as np
-import jax.numpy as jnp
-from vampomi_tpu.config import RunConfig
-from vampomi_tpu.engine.probit import infere_bin_class
-from vampomi_tpu.ops.operator import build_design
-from vampomi_tpu.sim.data_sim import simulate_iid
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-fx = simulate_iid(n=300, m=500, lam=0.1, h2=0.8, seed=4)
-dm = build_design(fx.X.T, mesh=None, compute_dtype=jnp.float32)
-y_bin = (fx.y > np.median(fx.y)).astype(np.float64)
-cfg = RunConfig(out_dir="/tmp", out_name="pca_t", iterations=3,
-                meth_file="x", model="bin_class",
-                probs=[0.9, 0.07, 0.03], vars=[0.0, 1e-3, 1e-2], h2=0.8,
-                stop_criteria_thr=0.0, lmmse_solver="spectral")
-res = infere_bin_class(dm, y_bin, cfg, true_signal=fx.beta,
-                       write_outputs=False)
-assert np.all(np.isfinite(res.x1_hat_scaled))
-"""
-    cache = tmp_path / "pca_cache"
-    cache.mkdir()
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               VAMPOMI_COMPILE_CACHE=str(cache))
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    r = subprocess.run([sys.executable, "-c", prog], env=env,
-                       capture_output=True, text=True, timeout=600, cwd=repo)
-    assert r.returncode == 0, r.stderr[-2000:]
-    for kernel in ("_probit_phase", "_em_phase"):
-        files = glob.glob(str(cache) + f"/jit_{kernel}-*")
-        assert len(files) == 1, (
-            f"{kernel}: {len(files)} cache entries — aval mismatch between "
-            f"compile-ahead and the loop"
-        )
+    import jax
+
+    from vampomi_tpu.sim.data_sim import simulate_iid
+
+    fx = simulate_iid(n=256, m=256, lam=0.1, h2=0.9, seed=5)
+    ybin = (fx.X @ fx.beta > 0).astype(float)
+    dm = build_design(fx.X.T, mesh=mesh8 if on_mesh else None,
+                      compute_dtype=jnp.float32)
+    assert dm.m_pad == int(dm.n)
+    cfg = probit_cfg(tmp_path, iterations=3, stop_criteria_thr=0.0,
+                     lmmse_solver="spectral")
+    jax.clear_caches()
+    with jax.log_compiles(True), caplog.at_level(logging.WARNING):
+        res = infere_bin_class(dm, ybin, cfg, true_signal=fx.beta,
+                               write_outputs=False)
+    assert np.all(np.isfinite(res.x1_hat_scaled))
+    compiles = [r.getMessage() for r in caplog.records
+                if "Compiling" in r.getMessage()]
+    for name in ("_probit_phase", "_em_phase"):
+        n = sum(f"jit({name})" in m for m in compiles)
+        assert n == 1, (name, n, compiles)
 
 
 def test_probit_eigen_build_budget_falls_back(small_fixture):

@@ -1,12 +1,11 @@
 """Packed int4 design matrix: quantizer bounds, pack/unpack round-trip,
 operator parity with the dequantized f64 oracle, Gram/Gibbs equivalence
-with an unpacked-codes design, Pallas kernels (interpret mode), engine
-convergence, and shard invariance.
+with an unpacked-codes design, engine convergence, and shard invariance.
 
 The packed layout stores two 4-bit affine codes per byte (low nibble =
 sample j, high nibble = sample j + N/2; ops/operator.py PACKED4_DTYPE) —
-half the HBM bytes of int8, reaching M ≈ 2e6 markers on one 16 GB chip at
-the reference's production N=10240 (simulation/sim_top_iid.py:8-30).
+half the bytes of int8 at the reference's production N=10240
+(simulation/sim_top_iid.py:8-30).
 """
 
 import jax.numpy as jnp
@@ -15,7 +14,6 @@ import pytest
 
 from vampomi_tpu.config import RunConfig
 from vampomi_tpu.engine.linear import infere_linear
-from vampomi_tpu.ops import pallas_matvec
 from vampomi_tpu.ops.operator import (
     PACKED4_DTYPE, atx, atx_batch, ax, ax_batch, build_design,
     dequantized_stats, pack_nibbles_host, quantize_markers4, unpack_nibbles,
@@ -132,91 +130,6 @@ def test_gram_and_gibbs_match_unpacked_codes(small_fixture):
     np.testing.assert_array_equal(g4, g8)
 
 
-def test_pallas_packed4_kernels_interpret(small_fixture):
-    rng = np.random.default_rng(3)
-    m, n = 128, 256
-    codes = rng.integers(-8, 8, size=(m, n), dtype=np.int8)
-    Xp = jnp.asarray(pack_nibbles_host(codes))
-    y = rng.normal(size=n).astype(np.float32)
-
-    tm = pallas_matvec.pick_tile(m, n // 2)
-    assert tm is not None
-    got = np.asarray(
-        pallas_matvec.atx_packed4_raw(Xp, jnp.asarray(y), tm, interpret=True)
-    )
-    want = codes.astype(np.float64) @ y.astype(np.float64)
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-3)
-
-    W = rng.normal(size=(m, 2)).astype(np.float32)
-    zk = np.asarray(pallas_matvec.ax_batch_packed4_raw(
-        Xp, jnp.asarray(W), (tm, 2), interpret=True))
-    want_z = codes.astype(np.float64).T @ W.astype(np.float64)
-    # bf16 weight rounding inside the MXU path
-    np.testing.assert_allclose(zk, want_z, rtol=2e-2, atol=2e-1)
-    assert zk.shape == (n, 2)
-
-    # reduce direction, K right-hand sides (CG/probit/Onsager batch)
-    Y = rng.normal(size=(n, 3)).astype(np.float32)
-    vk = np.asarray(pallas_matvec.atx_batch_packed4_raw(
-        Xp, jnp.asarray(Y), (tm, 3), interpret=True))
-    want_v = codes.astype(np.float64) @ Y.astype(np.float64)
-    np.testing.assert_allclose(vk, want_v, rtol=2e-5, atol=1e-3)
-    assert vk.shape == (m, 3)
-
-
-def test_atx_wiring_packed4(small_fixture, monkeypatch):
-    """Force the gate open (interpret mode): full atx/ax_batch through the
-    packed kernels must match the unpack-einsum fallback."""
-    import functools
-
-    X = small_fixture.X[:, :448]  # M=448 tiles
-    dm = build_design(X.T, compute_dtype=PACKED4_DTYPE)
-    rng = np.random.default_rng(7)
-    y = jnp.asarray(rng.normal(size=X.shape[0]).astype(np.float32))
-    xs = jnp.asarray(rng.normal(size=(dm.m_pad, 2)).astype(np.float32))
-
-    v_fallback = np.asarray(atx(dm, y))
-    z_fallback = np.asarray(ax_batch(dm, xs))
-
-    tm = pallas_matvec.pick_tile(*dm.X.shape)
-    assert tm is not None
-    monkeypatch.setattr(pallas_matvec, "atx_applicable", lambda _dm: tm)
-    monkeypatch.setattr(
-        pallas_matvec, "ax_batch_packed4_applicable", lambda _dm, k: (tm, k)
-    )
-    monkeypatch.setattr(
-        pallas_matvec, "atx_packed4_raw",
-        functools.partial(pallas_matvec.atx_packed4_raw.__wrapped__,
-                          interpret=True),
-    )
-    monkeypatch.setattr(
-        pallas_matvec, "ax_batch_packed4_raw",
-        functools.partial(pallas_matvec.ax_batch_packed4_raw.__wrapped__,
-                          interpret=True),
-    )
-    monkeypatch.setattr(
-        pallas_matvec, "atx_batch_packed4_applicable", lambda _dm, k: (tm, k)
-    )
-    monkeypatch.setattr(
-        pallas_matvec, "atx_batch_packed4_raw",
-        functools.partial(pallas_matvec.atx_batch_packed4_raw.__wrapped__,
-                          interpret=True),
-    )
-    v_kernel = np.asarray(atx(dm, y))
-    z_kernel = np.asarray(ax_batch(dm, xs))
-    np.testing.assert_allclose(v_kernel, v_fallback, rtol=2e-2, atol=2e-2)
-    np.testing.assert_allclose(z_kernel, z_fallback, rtol=2e-2, atol=2e-2)
-
-    ys = jnp.asarray(rng.normal(size=(X.shape[0], 2)).astype(np.float32))
-    from vampomi_tpu.ops.operator import atx_batch
-    vb_kernel = np.asarray(atx_batch(dm, ys))
-    monkeypatch.setattr(
-        pallas_matvec, "atx_batch_packed4_applicable", lambda _dm, k: None
-    )
-    vb_fallback = np.asarray(atx_batch(dm, ys))
-    np.testing.assert_allclose(vb_kernel, vb_fallback, rtol=2e-2, atol=2e-2)
-
-
 def test_shard_invariance_packed4(small_fixture, mesh8):
     X = small_fixture.X  # M=500 -> pad to 504
     dm1 = build_design(X.T, mesh=None, compute_dtype=PACKED4_DTYPE)
@@ -254,10 +167,10 @@ def test_engine_converges_int4(small_fixture, tmp_path, solver):
 
 
 def test_chunked_unpack_fallback_matches_unchunked(small_fixture, monkeypatch):
-    """The marker-chunked unpack fallbacks (operator._packed4_*_chunked,
-    round-3 review Weak #4: no full-M bf16 transient off the Pallas gate)
-    must reproduce the single-shot unpack-einsum results, including a
-    ragged final chunk (M=500 with chunk=256 -> 256 + 244)."""
+    """The marker-chunked unpack route (operator._packed4_ax_chunked: no
+    full-M bf16 transient) must reproduce the single-shot unpack-einsum
+    results, including a ragged final chunk (M=500 with chunk=256 ->
+    256 + 244)."""
     from vampomi_tpu.ops import operator as op
 
     X = small_fixture.X  # (N=200, M=500)

@@ -1,4 +1,4 @@
-"""bf16-vs-f32 trajectory accuracy on the real TPU at a mid-size fixture.
+"""bf16-vs-f32 trajectory accuracy on the accelerator at a mid-size fixture.
 
 Evidence for the claim that bf16 X (vectors f32) halves HBM per marker "at
 equal rate" WITHOUT changing the science: runs the identical linear-gVAMP

@@ -4,7 +4,7 @@
 
 (reference README.md:170-213).  Unlike em_credible_r03 — which substituted a
 one-pass marginal-moment estimate for the MCMC stage — this drives the
-framework's own TPU-native Gibbs sampler (vampomi_tpu/gibbs/) at production
+framework's own Gibbs sampler (vampomi_tpu/gibbs/) at production
 scale, feeds its CSV/.grm through the ported conf_gibbs_init script
 verbatim, and seeds inference from the emitted .conf.  No ground truth
 enters inference at any stage; truth is used only to SCORE afterwards.
@@ -60,7 +60,7 @@ def main():
                       mesh=None, compute_dtype=jnp.int8)
     out["ingest_seconds"] = round(time.time() - t0, 1)
 
-    # ---- stage 1: the TPU-native Gibbs sampler (truth-free) ----
+    # ---- stage 1: the framework's Gibbs sampler (truth-free) ----
     t0 = time.time()
     res_g = run_gibbs(
         ds.dm, ds.phen.y, iterations=sweeps, burnin=sweeps // 2,
@@ -137,7 +137,7 @@ def main():
 
     out["note"] = (
         "The reference's full documented production workflow with every "
-        "stage inside the framework: TPU-native block-Gibbs (int8-exact "
+        "stage inside the framework: block-Gibbs (int8-exact "
         "block Grams, 2 X passes/sweep) -> conf_gibbs_init (ported script, "
         "verbatim) -> --init-conf -> eigen-LMMSE gVAMP with the MCMC-derived "
         "prior fixed.  Truth scores, never informs."

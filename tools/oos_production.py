@@ -26,7 +26,7 @@ through the framework at the 17 GB production shape:
   4. append everything under "oos_r05" in PRODUCTION_RUN.json.
 
 Outage-proofing (the gibbs_production lesson): OOS_PARTIAL.json at the
-repo root is rewritten after EVERY stage, so a timeout or relay death
+repo root is rewritten after EVERY stage, so a timeout or device failure
 loses at most the stage in flight; the final merge into
 PRODUCTION_RUN.json removes the partial file.
 

@@ -1,48 +1,26 @@
-"""Default persistent-compilation-cache directory (jax-free helper).
+"""Persistent compilation-cache directory (jax-free helper).
 
-XLA:CPU executables encode the compile host's ISA extensions; restoring
-this container onto a host with a different feature set makes cached CPU
-entries fail at load time with "Machine type used for XLA:CPU compilation
-doesn't match the machine type for execution" (observed 2026-08-18 after a
-container migration poisoned the shared cache and broke the bench
-supervisor's CPU child).  Folding a hash of the CPU feature set into the
-default cache dir gives each distinct host its own cache instead of a
-poisoned shared one.  Kept import-light (no jax) so doctor.py can compute
-the path without initializing a backend.
+`JAX_COMPILATION_CACHE_DIR`, when set, is JAX's own setting and wins: the
+package then configures no directory of its own.  Otherwise the cache lives
+at one fixed path inside the checkout, `<repo>/.jax_cache` (gitignored).
+The directory is part of JAX's cache key, so the default carries no user,
+temp dir, process, time or host component: a fresh machine running the same
+checkout looks up the same entries.  `VAMPOMI_NO_COMPILE_CACHE=1` turns the
+package's cache off.  Kept import-light (no jax) so doctor.py can report the
+path without initializing a backend.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
-import tempfile
+
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 
-def host_fingerprint() -> str:
-    """Short hash of the CPU feature set (machine arch + /proc/cpuinfo flags)."""
-    ident = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as fh:
-            for line in fh:
-                if line.startswith("flags"):
-                    ident += " " + " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:
-        pass
-    return hashlib.sha256(ident.encode()).hexdigest()[:8]
-
-
-def default_cache_dir() -> str:
-    """The cache dir vampomi_tpu configures when VAMPOMI_COMPILE_CACHE is unset.
-
-    Per-user (a world-shared fixed path breaks for the second user on a
-    multi-user machine) and per-host-fingerprint (see module docstring).
-    """
-    return os.environ.get(
-        "VAMPOMI_COMPILE_CACHE",
-        os.path.join(
-            tempfile.gettempdir(),
-            f"vampomi_jax_cache_{os.getuid()}_{host_fingerprint()}",
-        ),
-    )
+def cache_dir() -> str | None:
+    """The compile-cache directory in use, or None when disabled."""
+    if os.environ.get("VAMPOMI_NO_COMPILE_CACHE") == "1":
+        return None
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR

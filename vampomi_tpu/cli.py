@@ -21,7 +21,7 @@ from .config import RunConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vampomi_tpu",
-        description="TPU-native gVAMP for omics-scale Bayesian regression",
+        description="gVAMP for omics-scale Bayesian regression",
     )
     s = p.add_argument_group("files")
     s.add_argument("--meth-file", default="")
@@ -82,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     h.add_argument("--probs", type=str, default="")
     h.add_argument("--test-iter-range", type=str, default="")
 
-    x = p.add_argument_group("TPU-native extensions")
+    x = p.add_argument_group("extensions (not in the reference)")
     x.add_argument("--compute-dtype", default="auto",
                    choices=["auto", "float64", "float32", "bfloat16", "int8",
                             "int4", "f64", "f32", "bf16", "i8", "i4"])
@@ -98,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--eigen-cache", default="",
                    help="persist the once-per-dataset eigenbasis to this "
                         ".npz and reload it on later runs over the same "
-                        "dataset (skips the minutes-long build)")
+                        "dataset (skips the build)")
     x.add_argument("--eigen-build-budget", type=float, default=0.0,
                    help="wall-clock seconds the eigen build may take "
                         "(0 = unlimited); on overrun the run falls back "
@@ -170,17 +170,24 @@ def main(argv: list[str] | None = None) -> int:
 
     import jax
 
-    # Multi-host (pod-slice / multi-process) execution: the TPU-native analog
-    # of the reference's `mpirun -np R` (src/main_meth.cpp:12-18).  Launch one
-    # process per host with VAMPOMI_DISTRIBUTED=1 (coordinator/rank discovery
-    # comes from the TPU runtime or JAX_COORDINATOR_ADDRESS/PROCESS_ID).
+    # Multi-process execution: the analog of the reference's `mpirun -np R`
+    # (src/main_meth.cpp:12-18).  Launch one process per host (or per GPU)
+    # with VAMPOMI_DISTRIBUTED=1.  On GPUs nothing discovers the cluster:
+    # each process gets JAX_COORDINATOR_ADDRESS (host:port of process 0),
+    # JAX_NUM_PROCESSES and JAX_PROCESS_ID from its environment.
     # NOTE: must run before anything touches the backend (jax.process_count
     # itself would initialize a 1-process backend and poison the guard)
     if os.environ.get("VAMPOMI_DISTRIBUTED") == "1":
-        try:
-            jax.distributed.initialize()
-        except RuntimeError:
-            pass  # already initialized (runtime auto-detection)
+        missing = [k for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                               "JAX_PROCESS_ID") if not os.environ.get(k)]
+        if missing:
+            raise SystemExit("FATAL  : VAMPOMI_DISTRIBUTED=1 needs "
+                             + ", ".join(missing) + " in the environment")
+        jax.distributed.initialize(
+            coordinator_address=os.environ["JAX_COORDINATOR_ADDRESS"],
+            num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
+            process_id=int(os.environ["JAX_PROCESS_ID"]),
+        )
 
     from .dataset import load_dataset
     from .io.bin_io import read_bin_slab

@@ -72,7 +72,7 @@ class RunConfig:
     probs: list[float] = field(default_factory=lambda: list(DEFAULT_PROBS))
     test_iter_range: list[int] = field(default_factory=lambda: [1, 50])
 
-    # TPU-native extensions (not present in the reference)
+    # extensions (not present in the reference)
     lmmse_solver: str = "auto"    # auto | cg | spectral (ops/spectral.py)
     spectral_max_n: int = 16384   # auto picks spectral only when N <= this
     eigen_cache: str = ""         # persist/reload the once-per-dataset
@@ -92,6 +92,10 @@ class RunConfig:
         import jax.numpy as jnp
 
         if self.compute_dtype == "auto":
+            # f32 on an accelerator: the passes over X are bound by memory
+            # bandwidth, so f32 X moves half the bytes of f64 X (the H100's
+            # f64 is native, but bytes set the rate); f64 on the CPU, where
+            # the engine doubles as the correctness oracle
             plat = jax.devices()[0].platform
             return jnp.float64 if plat == "cpu" else jnp.float32
         return {
@@ -102,12 +106,11 @@ class RunConfig:
             "f32": jnp.float32,
             "bf16": jnp.bfloat16,
             # per-marker affine-quantized design matrix (ops/operator.py
-            # quantize_markers): 1 byte/element doubles markers/chip vs bf16
+            # quantize_markers): 1 byte/element, half of bf16's footprint
             "int8": jnp.int8,
             "i8": jnp.int8,
             # packed 4-bit affine codes, two per byte (ops/operator.py
-            # quantize_markers4): ~5 GB at M=1e6 x N=10240 — room for
-            # M ≈ 2e6 markers on one 16 GB chip
+            # quantize_markers4): 5.4 GB at M=2^20 x N=10240
             "int4": jnp.uint8,
             "i4": jnp.uint8,
         }[self.compute_dtype]

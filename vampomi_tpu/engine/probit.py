@@ -25,21 +25,21 @@ linear header (src/vamp.cpp:72-77 + vamp_probit.cpp:22).
 from __future__ import annotations
 
 import functools
-import os
 import time
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import NamedSharding
 
 from ..config import RunConfig
-from ..sharding import fetch_global
+from ..sharding import commit_like, fetch_global
 from ..glm.probit import g1_bin_class, g1d_bin_class, newton_method_cov
 from ..io.bin_io import iteration_file, write_bin_slab, write_marker_file
 from ..io.csv_writer import PositionalCSV
 from ..ops.cg import cg_solve
-from ..ops.operator import DesignMatrix, atx, ax
+from ..ops.operator import DesignMatrix, atx, ax, jit_for_design
 from ..ops.spectral import (
     build_spectral, default_nb, shift_inverse, spectral_solve, spectral_traces,
 )
@@ -231,69 +231,6 @@ def _probit_phase(
     )
 
 
-def _compile_ahead_probit(dm, solver, cfg, n, m_pad, gam1, tau1, gam2,
-                          alpha1, rho, probit_var, prior, verbose):
-    """AOT-lower the probit phase (+ EM phase) on background threads while
-    the main thread builds the Gram factor / eigen basis — the probit
-    analog of engine/linear.py _compile_ahead_phases (same single-device
-    gate, same harmless-on-failure contract)."""
-    if jax.device_count() != 1 or os.environ.get(
-            "VAMPOMI_ENGINE_COMPILE_AHEAD") == "0":
-        return None
-    import concurrent.futures as _fut
-
-    from ..ops.eigen import EigenFactor
-    from ..ops.spectral import GramFactor
-    from .linear import _em_phase
-
-    wd = dm.wd
-
-    def sds(shape, dt):
-        return jax.ShapeDtypeStruct(shape, dt)
-
-    mv = sds((m_pad,), wd)
-    yv = sds((n,), wd)
-    damp = jnp.asarray(True)
-    if solver == "eigen":
-        fac_s = EigenFactor(U=sds((n, n), wd), lam=sds((n,), jnp.float64))
-    elif solver == "spectral":
-        fac_s = GramFactor(K=sds((n, n), wd))
-    else:
-        fac_s = None
-    items = [("probit-phase", lambda: _probit_phase.lower(
-        dm, yv, yv, mv, mv, yv, yv,
-        gam1, tau1, gam2, alpha1, prior, mv,
-        damp, rho, probit_var, mv, mv,
-        jnp.asarray(cfg.CG_max_iter), jnp.asarray(cfg.CG_err_tol),
-        fac=fac_s, solver=solver, debug=cfg.verbosity == 1).compile())]
-    if cfg.iterations > 1:
-        items.append(("em-phase", lambda: _em_phase.lower(
-            dm, mv, gam1, prior,
-            jnp.asarray(cfg.EM_max_iter), jnp.asarray(cfg.EM_err_thr),
-            jnp.asarray(bool(cfg.learn_vars)),
-            jnp.asarray(cfg.merge_vars_thr),
-            jnp.asarray(cfg.em_signal_budget(n), dtype=jnp.float64),
-            debug=cfg.verbosity == 1).compile()))
-
-    pool = _fut.ThreadPoolExecutor(max_workers=len(items),
-                                   thread_name_prefix="probit-compile-ahead")
-
-    def run(label, thunk):
-        t0 = time.time()
-        try:
-            thunk()
-            _log(verbose, f"[compile-ahead] {label} ready "
-                          f"({time.time() - t0:.1f}s)")
-        except Exception as e:
-            _log(verbose, f"[compile-ahead] {label} failed "
-                          f"({type(e).__name__}: {e})")
-
-    for label, thunk in items:
-        pool.submit(run, label, thunk)
-    pool.shutdown(wait=False)
-    return pool
-
-
 def infere_bin_class(
     dm: DesignMatrix,
     y: np.ndarray,
@@ -377,6 +314,9 @@ def infere_bin_class(
         it_start = ck["iteration"] + 1
         _log(True, f"...resumed exact state from {cfg.resume_file} at iteration {it_start}")
 
+    (x1_hat, r1, r2), (p1, p2, gam1, tau1, gam2, alpha1, prior) = commit_like(
+        dm.X, (x1_hat, r1, r2), (p1, p2, gam1, tau1, gam2, alpha1, prior))
+
     out_params = out_metrics = out_prior = None
     if write_outputs:
         prior_header = (
@@ -397,15 +337,11 @@ def infere_bin_class(
         out_params = _csv(base + "_params.csv", PARAMS_HEADER)
         out_prior = _csv(base + "_prior.csv", prior_header)
 
-    from jax.sharding import NamedSharding
-
     n_devices = 1
     if isinstance(dm.X.sharding, NamedSharding):
         n_devices = int(np.prod(dm.X.sharding.mesh.devices.shape))
     solver = choose_lmmse_solver(cfg, Mt, N, n_devices)
     warn_em_stability(cfg, Mt, N)
-    _compile_ahead_probit(dm, solver, cfg, N, M_pad, gam1, tau1, gam2,
-                          alpha1, rho, probit_var, prior, verbose)
     fac = None
     if solver in ("spectral", "eigen"):
         t_fac = time.time()
@@ -499,7 +435,7 @@ def infere_bin_class(
 
             x1_prev = x1_hat
             r1_in = r1
-            out = _probit_phase(
+            out = jit_for_design(_probit_phase, dm, ("solver", "debug"))(
                 dm, y_j, m_cov, r1, r2, p1, p2,
                 gam1, tau1, gam2, alpha1, prior, x1_prev,
                 jnp.asarray(it > 1), rho, probit_var, bern, ts_scaled,

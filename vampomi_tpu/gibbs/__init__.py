@@ -1,4 +1,4 @@
-"""TPU-native spike-and-slab Gibbs sampler (GMRMomi-analog warm-start stage).
+"""Spike-and-slab Gibbs sampler (GMRMomi-analog warm-start stage).
 
 See sampler.py for the block residual-update design and runner.py for the
 GMRM-compatible output formats consumed by scripts/conf_gibbs_init.py and

@@ -25,7 +25,7 @@ _DTYPES = {
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description="TPU-native Gibbs warm-start sampler")
+    p = argparse.ArgumentParser(description="Gibbs warm-start sampler")
     p.add_argument("--meth-file", required=True)
     p.add_argument("--phen-file", required=True)
     p.add_argument("--N", type=int, required=True)

@@ -1,4 +1,4 @@
-"""TPU-native spike-and-slab Gibbs sampler (the GMRMomi analog).
+"""Spike-and-slab Gibbs sampler (the GMRMomi analog).
 
 The reference ecosystem's documented production workflow warm-starts gVAMP
 from a GMRMomi Gibbs run: scripts/conf_gibbs_init.py averages the sampler's
@@ -17,23 +17,23 @@ Model (BayesR-type, matching the gVAMP prior family, src/vamp.cpp:440-463):
 with A the standardized operator (ops/operator.py) and x internal-scale
 (= beta * sqrt(N)), exactly the engine's conventions.
 
-TPU-first design — the reference ecosystem's CPU samplers walk markers
+Design — the reference ecosystem's CPU samplers walk markers
 serially with O(N) residual updates per marker (M*N sequential work per
 sweep).  Single-site Gibbs is inherently sequential, but the O(N) inner
 dependency is not: markers are processed in blocks of B with
 
   1. r_b = A_b y_resid               one streamed pass over X per sweep
-  2. an in-VMEM sequential scan over the B markers, correcting the local
+  2. an on-device sequential scan over the B markers, correcting the local
      correlations through a PRECOMPUTED block Gram G_b = A_b A_b^T
      (c_loc <- c_loc - G[:,j] * dx, O(B) per marker instead of O(N))
   3. y_resid -= A_b^T dx_b           second streamed pass over X
 
-so a full sweep costs exactly 2 HBM passes over X — identical to a VAMP
-iteration — plus M latency-bound O(B) VPU steps, while remaining a
+so a full sweep costs exactly 2 passes over X — identical to a VAMP
+iteration — plus M latency-bound O(B) steps, while remaining a
 mathematically EXACT systematic-scan Gibbs chain (the block Gram makes the
 within-block conditionals exact; blocks are processed sequentially against
 the updated residual).  For int8 designs the Grams are computed EXACTLY via
-int8xint8->int32 MXU contractions plus rank-1 affine corrections.
+int8xint8->int32 contractions plus rank-1 affine corrections.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ Formats (reference: SURVEY §2.4):
                     reference src/utilities.cpp:241-267)
 
 Each host reads/writes only its own slab of the single shared file — the
-TPU-native equivalent of the reference's `MPI_File_set_view` at offset S·8
+equivalent of the reference's `MPI_File_set_view` at offset S·8
 (src/utilities.cpp:246,258).
 """
 

@@ -23,8 +23,8 @@ src/data.cpp:405).  The raw add-back under- or over-restores marker j's own
 fitted effect by the factor msig_j (methylation sds are ≪ 1, so msig ≫ 1),
 which leaves part of the marker's fitted signal in the "leave-one-out"
 residual and makes the quirk p-values anti-conservative at production scale
-(PRODUCTION_RUN.json: 4 false positives at Bonferroni vs 0 for SE).  The
-1-D regression itself still uses the raw marker — the t statistic depends
+(a round-5 production run saw 4 false positives at Bonferroni vs 0 for SE).
+The 1-D regression itself still uses the raw marker — the t statistic depends
 only on corr(x, y), which is invariant to per-marker affine maps, so only
 the add-back differs.  Default stays `loo` (reference parity).
 """
@@ -41,8 +41,9 @@ from scipy.stats import norm, t as student_t
 from ..config import RunConfig
 from ..dataset import Dataset
 from ..io.bin_io import parse_iteration, read_bin_slab, write_bin_slab
-from ..ops import pallas_matvec
-from ..ops.operator import PACKED4_DTYPE, ax, unpack_nibbles
+from ..ops.operator import (
+    PACKED4_DTYPE, ax, jit_for_design, reduce_rows, unpack_nibbles,
+)
 
 
 def pvals_se(r1: np.ndarray, gam1: float, n: int) -> np.ndarray:
@@ -70,45 +71,32 @@ def _loo_stats(dm, y_mod):
     rescales the add-back coefficient (pvals_loo).
 
     The converts feeding the reductions fuse into the reads (no full-size
-    X copy materializes); int8 codes are exact in both f32 and bf16, so the
-    only rounding on the narrow paths is y_mod → bf16 in the matvec
-    (~1e-3 relative on xy, far below the quantizer's own perturbation)."""
+    X copy materializes); quantized codes are exact in f32 and the matvec
+    keeps y_mod in f32 (ops/operator.py reduce_rows), so the only
+    rounding on the narrow paths is f32 accumulation — and, for bf16 X,
+    y_mod → bf16 in the matvec (~1e-3 relative on xy, far below the
+    quantizer's own perturbation)."""
     acc = dm.wd  # f32 for narrow X, else X's own dtype
     if dm.X.dtype == PACKED4_DTYPE:
-        n2 = dm.X.shape[1]
         lo, hi = unpack_nibbles(dm.X, dtype=jnp.float32)
         sumx = (jnp.sum(lo, axis=1) + jnp.sum(hi, axis=1)).astype(jnp.float64)
         sumsqx = (jnp.sum(lo * lo, axis=1) + jnp.sum(hi * hi, axis=1)).astype(jnp.float64)
-        tm = pallas_matvec.atx_applicable(dm)
-        if tm is not None:
-            # single-device TPU: the packed kernel reads the bytes in place
-            # (the einsum route would materialize the unpacked bf16 halves)
-            xy = pallas_matvec.atx_packed4_raw(
-                dm.X, y_mod.astype(jnp.float32), tm
-            ).astype(jnp.float64)
-        else:
-            yb = y_mod.astype(jnp.bfloat16)
-            xy = (
-                jnp.einsum("mn,n->m", lo.astype(jnp.bfloat16), yb[:n2],
-                           preferred_element_type=jnp.float32)
-                + jnp.einsum("mn,n->m", hi.astype(jnp.bfloat16), yb[n2:],
-                             preferred_element_type=jnp.float32)
-            ).astype(jnp.float64)
-        return sumx, sumsqx, xy
-    Xa = dm.X.astype(acc)
-    sumx = jnp.sum(Xa, axis=1).astype(jnp.float64)
-    sumsqx = jnp.sum(Xa * Xa, axis=1).astype(jnp.float64)
-    if dm.X.dtype in (jnp.bfloat16, jnp.int8):
+    else:
+        Xa = dm.X.astype(acc)
+        sumx = jnp.sum(Xa, axis=1).astype(jnp.float64)
+        sumsqx = jnp.sum(Xa * Xa, axis=1).astype(jnp.float64)
+    if dm.X.dtype in (jnp.int8, PACKED4_DTYPE):
+        xy = reduce_rows(dm.X, y_mod[:, None])[:, 0].astype(jnp.float64)
+    elif dm.X.dtype == jnp.bfloat16:
         xy = jnp.einsum(
-            "mn,n->m", dm.X.astype(jnp.bfloat16), y_mod.astype(jnp.bfloat16),
+            "mn,n->m", dm.X, y_mod.astype(jnp.bfloat16),
             preferred_element_type=jnp.float32,
         ).astype(jnp.float64)
     else:
         xy = jnp.einsum(
             "mn,n->m", dm.X, y_mod.astype(dm.X.dtype),
             preferred_element_type=acc,
-            # TPU f32 matmuls default to bf16 operands; this pass feeds
-            # p-values, so keep full operand precision
+            # this pass feeds p-values: full f32 operands, never TF32
             precision=jax.lax.Precision.HIGHEST,
         ).astype(jnp.float64)
     return sumx, sumsqx, xy
@@ -131,10 +119,10 @@ def pvals_loo(
 
     xp = np.zeros(m_pad)
     xp[:mt] = x1_hat_scaled_up
-    z1 = np.asarray(ax(dm, jnp.asarray(xp)))
+    z1 = np.asarray(jit_for_design(ax, dm)(dm, jnp.asarray(xp)))
     y_mod = ds.phen.y - z1
 
-    sumx, sumsqx, xy = (np.asarray(a)[:mt] for a in _loo_stats(dm, jnp.asarray(y_mod)))
+    sumx, sumsqx, xy = (np.asarray(a)[:mt] for a in jit_for_design(_loo_stats, dm)(dm, jnp.asarray(y_mod)))
     xh = x1_hat_scaled_up / np.sqrt(n)
     quantized = dm.X.dtype in (jnp.int8, PACKED4_DTYPE)
     if standardized:

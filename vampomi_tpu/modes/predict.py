@@ -11,7 +11,7 @@ import numpy as np
 from ..config import RunConfig
 from ..dataset import Dataset
 from ..io.bin_io import read_bin_slab
-from ..ops.operator import ax
+from ..ops.operator import ax, jit_for_design
 
 
 def run_predict(ds: Dataset, cfg: RunConfig) -> np.ndarray:
@@ -30,7 +30,7 @@ def run_predict(ds: Dataset, cfg: RunConfig) -> np.ndarray:
     x_est = read_bin_slab(est_file, mt) * np.sqrt(float(n_test))
     xp = np.zeros(ds.dm.m_pad)
     xp[:mt] = x_est
-    z = np.asarray(ax(ds.dm, jnp.asarray(xp)))
+    z = np.asarray(jit_for_design(ax, ds.dm)(ds.dm, jnp.asarray(xp)))
 
     with open(pred_file, "w") as f:
         for v in z:

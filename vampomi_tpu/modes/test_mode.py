@@ -21,7 +21,7 @@ from ..config import RunConfig
 from ..dataset import Dataset
 from ..io.bin_io import read_bin_slab, read_vec_from_text, substitute_iteration
 from ..io.csv_writer import PositionalCSV
-from ..ops.operator import ax_batch
+from ..ops.operator import ax_batch, jit_for_design
 
 
 def _read_estimate(est_file_it: str, mt: int) -> np.ndarray:
@@ -37,8 +37,8 @@ def _read_estimate(est_file_it: str, mt: int) -> np.ndarray:
 def _collect_predictions(ds: Dataset, cfg: RunConfig, chunk: int = 16):
     """Yield (iteration, z) for every saved estimate in test_iter_range.
 
-    TPU-first: estimates are batched column-wise so `chunk` iterations share
-    each HBM pass over the test design matrix (multi-RHS ax_batch) instead of
+    Estimates are batched column-wise so `chunk` iterations share each
+    pass over the test design matrix (multi-RHS ax_batch) instead of
     the reference's one-full-pass-per-iteration loop (main_meth.cpp:163-202).
     """
     mt = int(ds.dm.mt)
@@ -59,7 +59,8 @@ def _collect_predictions(ds: Dataset, cfg: RunConfig, chunk: int = 16):
         for k, (_, f) in enumerate(grp):
             x_est = _read_estimate(f, mt)
             cols[: len(x_est), k] = x_est * scale
-        Z = np.asarray(ax_batch(ds.dm, jax.numpy.asarray(cols)))
+        prod = jit_for_design(ax_batch, ds.dm)
+        Z = np.asarray(prod(ds.dm, jax.numpy.asarray(cols)))
         for k, (it, _) in enumerate(grp):
             yield it, Z[:, k]
 

@@ -12,15 +12,16 @@ Mirrors the reference `vamp::precondCG_solver` (src/vamp.cpp:664-757):
   * the `denoiser == 0` variant's early exit when the running Hutchinson
     estimate gam2 ⟨v, mu⟩ stabilizes to rel-err 1e-8 (src/vamp.cpp:708-726).
 
-TPU-first extensions:
+Extensions:
   * **multi-RHS**: K right-hand sides are solved simultaneously with
     per-column alpha/beta and per-column stopping, so the two CG solves of
     each VAMP iteration (the main LMMSE solve and the Onsager trace-probe
-    solve) share every pass over the M×N matrix — halving HBM traffic per
+    solve) share every pass over the M×N matrix — halving memory traffic per
     iteration relative to the reference's serial structure while producing
     the same per-column iterates (CG columns are independent);
   * **dtype policy**: all (M, K) vector math runs in the operator's work
-    dtype (f32 on TPU); only the scalar convergence bookkeeping is f64.
+    dtype (f32 on an accelerator); only the scalar convergence bookkeeping
+    is f64.
 """
 
 from __future__ import annotations

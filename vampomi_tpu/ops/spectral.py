@@ -1,4 +1,4 @@
-"""Gram-space (Woodbury) LMMSE solver — the TPU-first fast path.
+"""Gram-space (Woodbury) LMMSE solver — the fast path.
 
 The reference solves the LMMSE system  Q mu = v,  Q = tau A^T A + gam2 I_M
 with preconditioned CG, paying **two full HBM passes over the M×N design
@@ -8,13 +8,14 @@ the noise-EM trace correction with a single Hutchinson probe
 (src/vamp.cpp:494-501, 504-529), which both costs a second CG solve and
 injects Monte-Carlo noise into the trajectory.
 
-On TPU the better algorithm exploits N << M: precompute the N×N Gram matrix
+On an accelerator the better algorithm exploits N << M: precompute the N×N
+Gram matrix
 
-    K = A A^T            (one MXU-saturating pass over X, done once)
+    K = A A^T            (one matmul-bound pass over X, done once)
 
 and per iteration Cholesky-factor the *shifted dual* matrix
 
-    S = gam2 I_N + tau K = L L^T      (N^3/3 MXU FLOPs — milliseconds)
+    S = gam2 I_N + tau K = L L^T      (N^3/3 FLOPs)
 
 Then every LMMSE quantity is EXACT:
 
@@ -23,7 +24,7 @@ Then every LMMSE quantity is EXACT:
   tr(Q^{-1})         = T + (Mt - N)/gam2,  T := tr(S^{-1}) = ||L^{-1}||_F^2
   tr(A^T A Q^{-1})   = (N - gam2 T) / tau
 
-at a cost of one Ax pass + one A^T x pass over X plus O(N^3) MXU work —
+at a cost of one Ax pass + one A^T x pass over X plus O(N^3) matmul work —
 independent of the CG iteration count.  (The trace identities hold for any
 Mt vs N: A^T A and K share nonzero eigenvalues {lam_i}; T sums 1/(tau lam_i
 + gam2) over all N of K's eigenvalues, zero modes of Q contribute 1/gam2
@@ -41,7 +42,7 @@ psum of an N×N array — the only O(N^2) communication, paid once per dataset.
 All per-iteration dense work (Cholesky, triangular solves) is N×N and runs
 replicated.
 
-Precision: on TPU the work dtype is f32; cholesky(S) at the condition
+Precision: on an accelerator the work dtype is f32; cholesky(S) at the condition
 numbers VAMP produces (gam2 and tau*lam within a few decades) carries
 ~1e-5 relative error — the same order as the reference's CG_err_tol.  The
 CPU oracle path runs the identical code in f64.
@@ -58,14 +59,14 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..sharding import MARKER_AXIS
-from .operator import DesignMatrix, atx, ax
+from .operator import DesignMatrix, atx, ax, design_compile_options
 
 
 class GramFactor(NamedTuple):
     """The reusable LMMSE state: the Gram matrix K = A A^T.
 
     Valid for ALL (tau, gam2) shifts — each iteration factors
-    gam2 I + tau K on the fly (cheap, MXU-bound).
+    gam2 I + tau K on the fly (cheap, matmul-bound).
     """
 
     K: jax.Array  # (N, N), work dtype, replicated
@@ -110,13 +111,13 @@ def _gram_pieces_local(Xl, msigl, mavel, acc_dtype, block: int):
             Xb = jnp.concatenate([lo, hi], axis=1)
         if narrow:
             # bf16/int8 X: weight one side in bf16 and contract bf16 x bf16
-            # with f32 accumulation — a SINGLE exact MXU pass (bf16 products
-            # are exact in f32; int8 codes are exact IN bf16).  The only loss
-            # is rounding w*x to bf16, a zero-mean ~4e-3 per-entry
+            # with f32 accumulation — a SINGLE exact bf16 product (bf16
+            # products are exact in f32; int8 codes are exact IN bf16).  The
+            # only loss is rounding w*x to bf16, a zero-mean ~4e-3 per-entry
             # perturbation that averages to ~4e-3/sqrt(M) ~ 1e-5 on K —
             # below the f32 factor's own noise.  The f32-upcast HIGHEST
-            # route costs 6 MXU passes instead (measured 8 s vs ~1 s for
-            # the whole build at M=688k).
+            # route runs at the f32 rate instead of the bf16 tensor-core
+            # rate.
             Xb16 = Xb.astype(jnp.bfloat16) if Xb.dtype == jnp.int8 else Xb
             Db = (w2b[:, None] * Xb16.astype(acc_dtype)).astype(jnp.bfloat16)
             Gb = jnp.einsum(
@@ -135,8 +136,8 @@ def _gram_pieces_local(Xl, msigl, mavel, acc_dtype, block: int):
         Gb = jnp.einsum(
             "bn,bk->nk", w2b[:, None] * Xb_acc, Xb_acc,
             preferred_element_type=acc_dtype,
-            # full f32 MXU passes: TPU matmuls default to bf16 operand
-            # precision, which is NOT enough for a Gram reused exactly
+            # full f32 operands: reduced-precision operands (bf16, or TF32
+            # on a GPU) are NOT enough for a Gram reused exactly
             precision=jax.lax.Precision.HIGHEST,
         )
         tb = ub @ Xb_acc
@@ -167,10 +168,11 @@ def gram(dm: DesignMatrix, block: int = 16384) -> jax.Array:
     """K = A A^T as an (N, N) array in the operator's work dtype.
 
     The contraction over the (possibly sharded) marker dim is one weighted
-    X^T X — M·N^2 MXU FLOPs, a single HBM pass over X — plus rank-1
+    X^T X — M·N^2 FLOPs, a single HBM pass over X — plus rank-1
     standardization corrections (the same fusion trick as ops/operator.py).
     """
     acc = dm.wd
+    opts = design_compile_options(dm.X) or None
     mesh = None
     if isinstance(dm.X.sharding, NamedSharding) and MARKER_AXIS in dm.X.sharding.spec:
         mesh = dm.X.sharding.mesh
@@ -193,10 +195,11 @@ def gram(dm: DesignMatrix, block: int = 16384) -> jax.Array:
                 jax.lax.psum(s2, MARKER_AXIS),
             )
 
-        G, t, s2 = jax.jit(pieces)(dm.X, dm.msig, dm.mave)
+        G, t, s2 = jax.jit(pieces, compiler_options=opts)(dm.X, dm.msig, dm.mave)
     else:
         G, t, s2 = jax.jit(
-            lambda X, ms, mv: _gram_pieces_local(X, ms, mv, acc, block)
+            lambda X, ms, mv: _gram_pieces_local(X, ms, mv, acc, block),
+            compiler_options=opts,
         )(dm.X, dm.msig, dm.mave)
 
     inv_n = (dm.inv_sqrt_n.astype(acc)) ** 2
@@ -217,7 +220,7 @@ class ShiftInverse(NamedTuple):
         W = L^{-1}  with  L L^T = S        (N, N) lower triangular
         T = ||W||_F^2 = tr(S^{-1})         () f64
 
-    Having W explicitly makes every per-iteration quantity two MXU matvecs:
+    Having W explicitly makes every per-iteration quantity two matvecs:
     S^{-1} b = W^T (W b), and both VAMP traces are closed forms of T
     (see `spectral_traces`).  Replaces the factor-then-forward-substitute
     pair (`shift_cholesky` + `spectral_traces(L=...)`) with ONE fused pass.
@@ -228,8 +231,8 @@ class ShiftInverse(NamedTuple):
 
     def solve(self, b: jax.Array) -> jax.Array:
         """S^{-1} b via two triangular matvecs (O(N^2), HBM-bound).
-        Full f32 operand precision: TPU matmuls default to bf16 operands,
-        which would inject ~1e-3 error into the exact solve."""
+        Full f32 operand precision: bf16 or TF32 operands would inject
+        ~1e-3 error into the exact solve."""
         with jax.default_matmul_precision("highest"):
             return self.W.T @ (self.W @ b)
 
@@ -242,11 +245,12 @@ def shift_inverse(fac: GramFactor, tau, gam2, nb: int = 8) -> ShiftInverse:
     Hutchinson probes, src/vamp.cpp:494-529, 664-757, with closed forms):
 
       * right-looking blocked Cholesky: the N^3/3 trailing (syrk) updates are
-        plain MXU matmuls;
+        plain matmuls;
       * each panel is formed as `A_panel @ Wjj^T` — a matmul against the
         diagonal block's explicit inverse instead of a large triangular
-        solve (triangular solves with big RHS are sequential-poor on TPU;
-        measured 4x slower than the matmul formulation at N=8192 f32);
+        solve (triangular solves with a big right-hand side are sequential;
+        whether cuSOLVER's make the matmul formulation unnecessary on the
+        GPU is not measured yet);
       * the inverse factor W = L^{-1} is built left-looking row-group by
         row-group: W[i,j] = -Wii (sum_{k=j}^{i-1} L[i,k] W[k,j]) — all
         matmuls over already-final blocks, N^3/3 FLOPs exploiting W's
@@ -254,7 +258,7 @@ def shift_inverse(fac: GramFactor, tau, gam2, nb: int = 8) -> ShiftInverse:
       * T = ||W||_F^2 accumulates per block in the work dtype, summed f64.
 
     The only non-matmul work is nb small (N/nb) Cholesky factorizations and
-    their trtri's.  Total ~2N^3/3 FLOPs, all MXU-shaped — strictly less
+    their trtri's.  Total ~2N^3/3 FLOPs, all matmul-shaped — strictly less
     latency than the previous factor (N^3/3, partly triangular) + separate
     forward-substitution trace pass (N^3/3, partly triangular), and the
     per-iteration `cho_solve` triangular solves disappear too.
@@ -282,9 +286,11 @@ def _factor_diag(A):
         P = A21 W11^T,  Sc = A22 - P P^T,  L22 W22 from Sc,
         L = [[L11, 0], [P, L22]],  W = [[W11, 0], [-W22 P W11, W22]].
 
-    Native cholesky/triangular-solve on TPU is row-sequential (vector unit)
-    and dominates the blocked factor at 512-1024 block sizes; the recursion
-    pushes all but the _FACTOR_BASE-sized leaves onto the MXU as matmuls.
+    Native cholesky/triangular-solve is row-sequential and dominated the
+    blocked factor at 512-1024 block sizes on the accelerator this was first
+    written for; the recursion turns all but the _FACTOR_BASE-sized leaves
+    into matmuls.  Whether cuSOLVER's factorizations make this unnecessary
+    on the GPU is not measured yet.
     """
     b = A.shape[0]
     if b <= _FACTOR_BASE:
@@ -316,7 +322,7 @@ def _shift_inverse_body(S, bounds, nb, n, wd):
     Every operand is an individual (bi, bj) block in a Python dict, so XLA
     never materializes a full-N^2 `.at[...]` functional update inside the
     loop (each of those costs a 4 N^2-byte HBM copy when the buffer cannot
-    be aliased — measured ~10 ms of pure copy traffic at N=8192, nb=8).
+    be aliased).
     The full W is assembled exactly once at the end with jnp.block.
     """
     spans = [(int(bounds[i]), int(bounds[i + 1])) for i in range(nb)]
@@ -371,15 +377,14 @@ def _shift_inverse_body(S, bounds, nb, n, wd):
 
 def _blocked_cholesky(S: jax.Array, nb: int) -> jax.Array:
     """Right-looking blocked Cholesky: the N^3/3 trailing (syrk) updates run
-    as plain MXU matmuls, measured 1.45x faster than XLA's monolithic
-    cholesky at N=8192 f32 on v5e (18.5 -> 12.8 ms with 8 blocks)."""
+    as plain matmuls."""
     n = S.shape[0]
     bounds = np.linspace(0, n, nb + 1).astype(int)
     L = jnp.zeros_like(S)
     A = S
-    # full f32 operand precision: bf16-operand trailing updates can lose
-    # positive-definiteness at high shift condition (measured NaN at
-    # cond ~ 1e5 on v5e)
+    # full f32 operand precision: reduced-precision trailing updates can
+    # lose positive-definiteness at high shift condition (NaN at cond ~ 1e5
+    # with bf16 operands)
     with jax.default_matmul_precision("highest"):
         for j in range(nb):
             lo, hi = int(bounds[j]), int(bounds[j + 1])
@@ -398,9 +403,9 @@ def _blocked_cholesky(S: jax.Array, nb: int) -> jax.Array:
 
 def default_nb(n: int) -> int:
     """Block count for the fused factor: 1 (monolithic chol + trtri) below
-    the size where blocking pays; the base/nb landscape is flat (24.3-25 ms
-    across base 256-2048, nb 4-16 at N=8192 f32 HIGHEST on v5e), 16 panels
-    measured marginally fastest."""
+    the size where blocking pays.  The choice of 16 panels was tuned on the
+    accelerator this was first written for; on the GPU it is not measured
+    yet."""
     return 16 if n >= 4096 else (8 if n >= 2048 else 1)
 
 
@@ -463,11 +468,9 @@ def spectral_traces(
 
     T is computed by fully blocked forward substitution: rows above the
     diagonal block of each L^{-1} column group are structurally zero, and
-    within a group the block-rows come from B×B triangular solves plus MXU
-    matmul updates — N^3/6 FLOPs, matmul-dominant (measured 9.5 ms at
-    N=8192 f32 on v5e with 8 blocks, vs 40 ms for the naive full-RHS
-    solve).  Block sums are reduced in the work dtype; the cross-block
-    accumulator is f64 (f64 vector math is emulated on TPU).
+    within a group the block-rows come from B×B triangular solves plus
+    matmul updates — N^3/6 FLOPs, matmul-dominant.  Block sums are reduced
+    in the work dtype; the cross-block accumulator is f64 (a scalar).
     """
     n = fac.n
     if winv is not None:
@@ -479,7 +482,7 @@ def spectral_traces(
     bounds = np.linspace(0, n, nb + 1).astype(int)
     T = jnp.asarray(0.0, dtype=jnp.float64)
     # full f32 operand precision for the block-update matmuls (see
-    # shift_inverse's docstring on TPU bf16-operand defaults)
+    # ShiftInverse.solve)
     with jax.default_matmul_precision("highest"):
         for j in range(nb):
             jlo, jhi = int(bounds[j]), int(bounds[j + 1])
